@@ -1,13 +1,13 @@
-"""MerCat2-TPU: a TPU-native k-mer counting and diversity-estimation framework.
+"""mercat2_tpu: a GPU-accelerated k-mer counting and diversity-estimation framework.
 
 A from-scratch rebuild of the capabilities of raw-lab/mercat2 (the reference
-CPU/Ray pipeline) designed TPU-first:
+CPU/Ray pipeline) on JAX:
 
 - sequences are packed host-side into b-bit symbol codes,
 - k-mer extraction + counting runs on-device as a fused multiword rolling
-  pack -> lexicographic sort -> run-length-encode pipeline (XLA + Pallas),
-- multi-chip scaling uses ``jax.sharding.Mesh`` + ``shard_map`` with
-  ``psum``/all-gather histogram merges over ICI,
+  pack -> lexicographic sort -> run-length-encode pipeline (XLA),
+- multi-device scaling uses ``jax.sharding.Mesh`` + ``shard_map`` with
+  ``psum``/all-to-all merges,
 - all downstream analytics (diversity, protein metrics, PCA, HTML report)
   are implemented natively (no skbio/plotly/dominate dependencies).
 

@@ -29,7 +29,7 @@ def parseargs(argv=None):
     parser = argparse.ArgumentParser(
         prog="mercat2-tpu",
         formatter_class=argparse.RawDescriptionHelpFormatter,
-        description="TPU-native k-mer counter and diversity estimator "
+        description="GPU-accelerated k-mer counter and diversity estimator "
         "(MerCat2-compatible)",
     )
     parser.add_argument("-i", required=False, default=list(),
@@ -42,7 +42,7 @@ def parseargs(argv=None):
     parser.add_argument("-c", type=int, default=10, help="minimum kmer count [10]")
     parser.add_argument("-prod", action="store_true",
                         help="run ORF calling on fasta files (pyrodigal if "
-                        "installed, else the built-in TPU-native ORF finder)")
+                        "installed, else the built-in ORF finder)")
     parser.add_argument("-fgs", action="store_true",
                         help="run a second ORF annotation round (FragGeneScanRs "
                         "if available, else the built-in finder)")

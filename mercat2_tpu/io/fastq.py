@@ -2,7 +2,7 @@
 
 The reference shells out to external tools for this stage — fastqc for QC
 (/root/reference/lib/mercat2_fasta.py:150), fastp for trimming (:169) and
-``sed`` for fastq->fasta (:192-197). None are TPU-relevant (host-side
+``sed`` for fastq->fasta (:192-197). None touch the device (host-side
 preprocessing), so this module provides native equivalents:
 
 - :func:`qc` computes per-position quality percentiles, per-read GC and

@@ -3,9 +3,10 @@
 The reference computes 20 metrics through skbio's ``beta_diversity`` — which
 is a thin wrapper over ``scipy.spatial.distance.pdist``
 (/root/reference/lib/mercat2_diversity.py:56-105). We call scipy directly,
-write the same per-metric distance TSV + heatmap PNG, and keep the same
-per-metric try/except (e.g. mahalanobis fails when samples < dimensions+1,
-documented in the reference at line 79).
+write the same per-metric distance TSV + heatmap PNG (when matplotlib is
+installed), and keep the reference's per-metric error report (e.g.
+mahalanobis fails when samples < dimensions+1, documented in the reference
+at line 79).
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def beta_distance_matrix(metric: str, counts: np.ndarray) -> np.ndarray:
 
 
 def compute_beta_diversity(basename: str, counts_tsv, outpath) -> list[str]:
-    """Distance TSV + heatmap PNG per metric; returns metrics that succeeded."""
+    """Distance TSV (+ heatmap PNG when matplotlib is installed) per metric;
+    returns the metrics that succeeded."""
     outpath = Path(outpath)
     outpath.mkdir(parents=True, exist_ok=True)
 
@@ -87,6 +89,14 @@ def compute_beta_diversity(basename: str, counts_tsv, outpath) -> list[str]:
             counts.append([int(x) for x in cols[1:]])
     mat = np.asarray(counts, dtype=np.int64)
 
+    try:
+        import matplotlib  # noqa: F401
+        draw = True
+    except ImportError:
+        draw = False
+        print("matplotlib not installed: beta diversity heatmaps skipped, "
+              "distance TSVs written")
+
     # distance computation is cheap; the per-metric PNG render is not
     # (~0.3 s each through matplotlib), so metrics run in a thread pool
     # using the pyplot-free object API (Figure + Agg canvas carries no
@@ -97,16 +107,19 @@ def compute_beta_diversity(basename: str, counts_tsv, outpath) -> list[str]:
     def one(metric: str) -> str | None:
         try:
             distance = beta_distance_matrix(metric, mat)
-            with open(outpath / f"{metric}-{basename}.tsv", "w") as writer:
-                print("", *ids, sep="\t", file=writer)
-                for i, row in enumerate(distance):
-                    print(ids[i], *row, sep="\t", file=writer)
-            _heatmap_png(distance, ids, outpath / f"{metric}-{basename}.png")
-            return metric
-        except Exception as e:  # reference logs and continues (lines 101-103)
+        except (ValueError, np.linalg.LinAlgError) as e:
+            # the reference logs and continues (lines 101-103), e.g.
+            # mahalanobis with fewer samples than dimensions + 1
             print(f"Error with beta metric: {metric.capitalize()}")
             print(e)
             return None
+        with open(outpath / f"{metric}-{basename}.tsv", "w") as writer:
+            print("", *ids, sep="\t", file=writer)
+            for i, row in enumerate(distance):
+                print(ids[i], *row, sep="\t", file=writer)
+        if draw:
+            _heatmap_png(distance, ids, outpath / f"{metric}-{basename}.png")
+        return metric
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         done = [m for m in pool.map(one, BETA_METRICS) if m]

@@ -7,7 +7,7 @@ accelerator for at-scale runs — millions of proteins batch through
 loop, and all nine alpha metrics evaluate in ONE device call over the
 count vector. Enabled by the pipeline's ``-device-metrics`` flag.
 
-Numerics: device arithmetic is float32 (TPUs have no native f64), so
+Numerics: device arithmetic is float32 (JAX's default without x64), so
 values can differ from the float64 host path in the last rounded digit;
 parity tests bound the drift (pI within the solver's own 0.01 epsilon,
 MW/hydropathy/diversity to ~1e-2 relative). The reference computes all of

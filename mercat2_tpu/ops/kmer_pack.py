@@ -1,7 +1,7 @@
 """Device-side k-mer extraction: rolling multiword bit-pack + lexicographic sort.
 
 This replaces the reference's Python dict hot loop
-(/root/reference/lib/mercat2_kmers.py:56-69) with a TPU-native pipeline:
+(/root/reference/lib/mercat2_kmers.py:56-69) with a device pipeline:
 
     uint8 code stream (separator-delimited records, sentinel-padded)
       -> rolling b-bit pack into ceil(k*b/32) uint32 key words per window
@@ -95,8 +95,7 @@ def _pack_kmer_words_tree(codes: jax.Array, k: int, bits: int) -> list[jax.Array
     Precompute P_m[i] = codes[i:i+m) packed into the low m*bits bits for
     m = 1, 2, 4, ... (while m*bits <= 32), then compose each output word's
     symbol range from its binary decomposition — O(log k) elementwise
-    passes instead of the k-step serial chain (measured ~2.5x cheaper at
-    k=21 on the v5e, where the chain cost ~1.1 ms per M windows).
+    passes instead of the k-step serial chain.
     """
     n = codes.shape[0]
     p = n - k + 1

@@ -1,13 +1,12 @@
-"""MXU dense k-mer histogram: one-hot matmuls instead of sort or scatter.
+"""Dense k-mer histogram from one-hot matmuls instead of sort or scatter.
 
 For small keyspaces (B = S**k <= ~16K bins) the count table is a dense
-histogram, and the TPU's fastest way to build one is the systolic array:
-split each window's bin index into (hi, lo) = (idx // B2, idx % B2) and
-accumulate ``one_hot(hi)^T @ one_hot(lo)`` over chunks — every (hi, lo)
-pair's dot product counts its occurrences. This replaces both the XLA
-scatter-add (~60 ms / 8.4M updates, NOTES_r1) and the sort path
-(~45 ms / 8.4M) with a few ms of MXU work for k=3 protein (25**3 = 15625
-bins) and nucleotide k <= 7.
+histogram, built here on the matrix units: split each window's bin index
+into (hi, lo) = (idx // B2, idx % B2) and accumulate
+``one_hot(hi)^T @ one_hot(lo)`` over chunks — every (hi, lo) pair's dot
+product counts its occurrences. Used for nucleotide k <= 7 and other
+keyspaces up to MXU_MAX_BINS. Whether a scatter-add or segment-sum
+histogram is faster on the H100 is not measured.
 
 Exactness: chunk size C < 2**24 keeps every per-chunk count exactly
 representable in the bf16-input/f32-accumulate matmul; chunks accumulate
@@ -30,12 +29,13 @@ __all__ = [
     "count_kmers_dense_segments", "decode_dense_histogram",
 ]
 
-#: largest keyspace routed to the MXU histogram. Above this the padded
-#: one-hot FLOPs (2 * windows * B1p * B2p) approach the sort path's cost.
+#: largest keyspace routed to the one-hot histogram; the padded one-hot
+#: FLOPs (2 * windows * B1p * B2p) grow with it. Not measured on the H100.
 MXU_MAX_BINS = 1 << 14
 
-#: windows per matmul chunk: small enough for the one-hot operands to live
-#: in VMEM (fused with the dot), large enough to amortize the scan step.
+#: windows per matmul chunk: keeps the one-hot operands small and every
+#: per-chunk count below 2**24, so the f32 accumulation is exact. Not
+#: measured on the H100.
 _CHUNK = 1 << 13
 
 
@@ -111,8 +111,8 @@ def count_kmers_dense_segments(
 
     Same transport and segment layout as
     ops.finalize.count_kmers_packed_segments (word ranges per file, global
-    gap ranges), but each file's windows are binned on the MXU instead of
-    sorted. Returns one int32[S**k] histogram per file; the host applies
+    gap ranges), but each file's windows are binned by one-hot matmuls
+    instead of sorted. Returns one int32[S**k] histogram per file; the host applies
     the per-file min-count filter (/root/reference/lib/mercat2_kmers.py:73-76)
     and decodes nonzero bins, which arrive already in lexicographic order.
     """

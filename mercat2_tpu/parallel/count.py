@@ -3,7 +3,7 @@
 Stream sharding uses a (k-1)-symbol halo: shard d covers window start
 positions [d*L, (d+1)*L) of the global stream and carries the next k-1
 symbols so every window is counted exactly once and none straddles a shard
-boundary invisibly. This is the TPU equivalent of the reference's Chunker
+boundary invisibly. This is the device equivalent of the reference's Chunker
 record-boundary splitting (/root/reference/lib/mercat2_Chunker.py:39-59) —
 but exact, because the halo preserves cross-cut windows while the Chunker
 relies on record boundaries.
@@ -34,11 +34,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from mercat2_tpu.ops.dense_hist import dense_kmer_histogram
 from mercat2_tpu.ops.kmer_pack import (
@@ -448,20 +445,42 @@ def _sharded_count_packed_device(wshards, gap_begin, gap_end, file_starts,
     )(wshards, gap_begin, gap_end, file_starts, n_total, min_count)
 
 
-#: default per-device HBM budget for the distributed-sort routing buffers.
-#: The route ships [D, seg_cap] per key word (send gather + all_to_all
-#: receive + merged sort copy ~= 3 live copies), i.e. ~12 * W * over * L
-#: bytes per device for L owned window starts — 480 MB/device at 16
-#: MB/device content and 2x overprovision (docs/WEAK_SCALING.json), which
-#: would thrash a 16 GB chip at full-size launch groups. Launches are
-#: batched so the estimate stays under this budget.
+#: per-device budget for the distributed-sort routing buffers on a backend
+#: that reports no memory limit (the CPU backend the tests run on). The
+#: route ships [D, seg_cap] per key word (send gather + all_to_all receive
+#: + merged sort copy ~= 3 live copies), i.e. ~12 * W * over * L bytes per
+#: device for L owned window starts; launches are batched so the estimate
+#: stays under the budget.
 _ROUTE_HBM_BUDGET = 128 << 20
+
+#: share of a device's memory limit (``memory_stats()["bytes_limit"]``)
+#: granted to the routing buffers; the rest holds the shards, the local
+#: sort's scratch and the finalize. 1/128 is the ratio the fixed budget
+#: had to the 16 GB device it was sized for. Not measured on the H100.
+_ROUTE_MEMORY_SHARE = 1 / 128
+
+
+def route_hbm_budget(device) -> int:
+    """Per-device routing budget in bytes: ``_ROUTE_MEMORY_SHARE`` of the
+    device's memory limit. The CPU backend reports no limit and keeps the
+    fixed ``_ROUTE_HBM_BUDGET``; an accelerator without one is an error,
+    not a default."""
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if limit:
+        return int(limit * _ROUTE_MEMORY_SHARE)
+    if device.platform == "cpu":
+        return _ROUTE_HBM_BUDGET
+    raise RuntimeError(
+        f"{device.platform} device {device.device_kind} reports no memory "
+        "limit; cannot size the routing buffers"
+    )
 
 
 def _route_batches(counter, sources: list, D: int, overprovision: float,
                    hbm_budget: int) -> list[list[int]]:
     """Greedy batches of source indices whose routing footprint fits the
-    per-device HBM budget (see _ROUTE_HBM_BUDGET). A single oversized file
+    per-device memory budget (see route_hbm_budget). A single oversized file
     still gets its own launch (per-file min-count semantics need every
     window of a file in one launch); its overshoot is reported via stats.
     """
@@ -488,7 +507,7 @@ def _route_batches(counter, sources: list, D: int, overprovision: float,
 def sharded_count_sources(counter, sources: list, min_count: int,
                           mesh: Mesh | None = None, *,
                           overprovision: float = 2.0,
-                          hbm_budget: int = _ROUTE_HBM_BUDGET,
+                          hbm_budget: int | None = None,
                           stats: dict | None = None) -> list:
     """Mesh-parallel count of several files from packed-transport sources.
 
@@ -502,16 +521,19 @@ def sharded_count_sources(counter, sources: list, min_count: int,
     symbols per word with 2 spare bits).
 
     Launches are batched so the routing buffers stay under ``hbm_budget``
-    bytes per device (files stay whole within a batch, preserving the
-    per-file filter semantics; batches reuse the same compiled program
-    shapes when their bucketed sizes agree).
+    bytes per device (default :func:`route_hbm_budget` of the mesh's first
+    device; files stay whole within a batch, preserving the per-file
+    filter semantics; batches reuse the same compiled program shapes when
+    their bucketed sizes agree).
     """
     n_files = len(sources)
     if n_files == 0:
         return []
-    D = int(mesh.shape[mesh.axis_names[0]]) if mesh is not None else max(
-        1, len(jax.devices())
-    )
+    if mesh is None:
+        mesh = flat_mesh()
+    D = int(mesh.shape[mesh.axis_names[0]])
+    if hbm_budget is None:
+        hbm_budget = route_hbm_budget(mesh.devices.flat[0])
     batches = _route_batches(counter, sources, D, overprovision, hbm_budget)
     if len(batches) > 1:
         result: list = [None] * n_files

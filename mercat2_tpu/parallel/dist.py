@@ -1,11 +1,11 @@
 """Multi-host runtime: process-group init + host-level work sharding.
 
 The reference's "cluster" story is a single-node Ray object store
-(/root/reference/bin/mercat2.py:217). The TPU-native equivalent is a JAX
+(/root/reference/bin/mercat2.py:217). The equivalent here is a JAX
 multi-host process group: every host runs the same program, owns its local
-devices, and claims a deterministic slice of the input files; device-side
-collectives (mercat2_tpu.parallel.count) then merge partial results over
-ICI/DCN. There is no driver process and no object store — the filesystem
+devices, and claims a deterministic slice of the input files; each host
+counts its own files on its own devices (mercat2_tpu.parallel.count).
+There is no driver process and no object store — the filesystem
 (or a shared mount) holds inputs, each host writes only the outputs it
 owns, and process 0 writes the combined artifacts.
 """
@@ -23,8 +23,8 @@ def init_distributed(coordinator: str | None = None,
     """Initialize jax.distributed when running multi-host; no-op otherwise.
 
     Arguments default to the standard JAX env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or TPU
-    pod metadata autodetection. Returns True if a multi-process group was
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or a
+    cluster environment JAX detects itself. Returns True if a multi-process group was
     initialized.
     """
     import jax
@@ -37,7 +37,7 @@ def init_distributed(coordinator: str | None = None,
         env = os.environ.get("JAX_PROCESS_ID")
         process_id = int(env) if env else None
     if coordinator is None and num_processes is None:
-        # single-host run (or TPU pod with full autodetection)
+        # single-host run (or a cluster JAX detected by itself)
         try:
             if jax.process_count() > 1:
                 return True

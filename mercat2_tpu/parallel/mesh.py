@@ -3,14 +3,13 @@
 The mesh has two logical axes:
 
 - ``data``: shards of the packed sequence stream (sample/chunk DP — the
-  TPU mapping of the reference's per-chunk Ray tasks,
+  device mapping of the reference's per-chunk Ray tasks,
   /root/reference/bin/mercat2.py:118-120).
 - ``bins``: shards of the dense histogram keyspace (TP analog; partial
   histograms reduce-scatter over ``data`` so each device owns a bin range).
 
-On a single chip both axes are 1. On a v5e-8 the default is (4, 2); callers
-can override. Multi-host pods extend the ``data`` axis across hosts (DCN)
-while ``bins`` stays intra-slice (ICI) so the heavy reduction rides ICI.
+On a single device both axes are 1. The split follows the algorithm alone
+(every device reaches every other at the same rate); callers can override.
 """
 
 from __future__ import annotations

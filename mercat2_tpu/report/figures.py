@@ -8,7 +8,6 @@ explains <1%) matches the reference exactly; styling is equivalent.
 
 from __future__ import annotations
 
-import os
 import re
 from pathlib import Path
 
@@ -129,21 +128,82 @@ def plot_sample_metrics(protein_samples: dict, tsv_out,
     return figures
 
 
+#: samples above which PCA runs incrementally (reference lowmem switch)
+PCA_CHUNK = 1000
+
+
+def pca_lowmem(lowmem, n_samples: int) -> bool:
+    """Whether PCA takes the incremental (lowmem) path: as requested, else
+    automatically above PCA_CHUNK samples (ref mercat2_figures.py:213)."""
+    return n_samples > PCA_CHUNK if lowmem is None else bool(lowmem)
+
+
+def require_pca_backend(lowmem, n_samples: int) -> None:
+    """Fail before any work when the incremental PCA path would need
+    scikit-learn and it is not installed (the full-batch path is numpy)."""
+    if not pca_lowmem(lowmem, n_samples):
+        return
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        raise SystemExit(
+            f"-pca over {n_samples} samples uses incremental PCA, which "
+            "needs scikit-learn; install it, or pass -lowmem False to run "
+            "the full-batch numpy PCA"
+        ) from None
+
+
+def _read_matrix(tsv_file, chunk_rows: int | None = None):
+    """Yield (names, float64 rows) blocks of a sample x k-mer TSV (header
+    line skipped, first column the sample name); one block when
+    ``chunk_rows`` is None."""
+    names: list[str] = []
+    rows: list[list[float]] = []
+    with open(tsv_file) as reader:
+        reader.readline()
+        for line in reader:
+            cols = line.rstrip("\n").split("\t")
+            names.append(cols[0])
+            rows.append([float(x) for x in cols[1:]])
+            if chunk_rows is not None and len(rows) == chunk_rows:
+                yield names, np.asarray(rows, np.float64)
+                names, rows = [], []
+    if rows or chunk_rows is None:
+        yield names, np.asarray(rows, np.float64)
+
+
+def pca_full(x: np.ndarray, n_components: int = 3):
+    """Exact PCA by SVD: (scores, explained_variance_ratio).
+
+    Matches scikit-learn's ``PCA`` — centering, SVD, and its sign rule
+    (``svd_flip(u_based_decision=False)``: the largest-magnitude loading
+    of every component is positive) — so scores agree with the reference's
+    pca.tsv up to floating-point rounding.
+    """
+    xc = x - x.mean(axis=0)
+    u, s, vt = np.linalg.svd(xc, full_matrices=False)
+    rows = np.arange(vt.shape[0])
+    signs = np.sign(vt[rows, np.argmax(np.abs(vt), axis=1)])
+    signs[signs == 0] = 1.0
+    vt = vt * signs[:, None]
+    var = s**2 / max(x.shape[0] - 1, 1)
+    total = var.sum()
+    ratio = var / total if total > 0 else np.zeros_like(var)
+    return xc @ vt[:n_components].T, ratio[:n_components]
+
+
 def plot_pca(tsv_file, out_path, lowmem=None, class_file=None, debug=False):
     """3-component PCA of the transposed combined matrix.
 
     Matches /root/reference/lib/mercat2_figures.py:206-352: IncrementalPCA
     when lowmem (auto when >1000 samples), pca.tsv output, 3D scatter, and a
-    2D fallback figure when PC3 explains <1% variance. PNGs via matplotlib.
+    2D fallback figure when PC3 explains <1% variance. The full-batch path
+    is numpy SVD (:func:`pca_full`); only the incremental path needs
+    scikit-learn. PNGs are drawn when matplotlib is installed.
     """
-    import pandas as pd
-    from sklearn.decomposition import PCA
-    from sklearn.decomposition import IncrementalPCA as iPCA
-
     out_path = Path(out_path)
     out_path.mkdir(parents=True, exist_ok=True)
     pca_tsv = out_path / "pca.tsv"
-    chunk_size = 1000
 
     names = []
     with open(tsv_file) as reader:
@@ -151,21 +211,21 @@ def plot_pca(tsv_file, out_path, lowmem=None, class_file=None, debug=False):
         for line in reader:
             names.append(re.sub(r"_protein", "", line.split()[0]))
 
-    if lowmem is None:
-        lowmem = len(names) > chunk_size
-
+    lowmem = pca_lowmem(lowmem, len(names))
     if lowmem:
+        from sklearn.decomposition import IncrementalPCA as iPCA
+
         pca = iPCA(n_components=3, batch_size=100)
-        for chunk in pd.read_csv(tsv_file, sep="\t", index_col=0, chunksize=chunk_size):
+        for _, chunk in _read_matrix(tsv_file, PCA_CHUNK):
             pca.partial_fit(chunk)
-        rows = []
-        for chunk in pd.read_csv(tsv_file, sep="\t", index_col=0, chunksize=chunk_size):
-            rows.append(pca.transform(chunk))
-        comps = np.concatenate(rows, axis=0)
+        comps = np.concatenate([
+            pca.transform(chunk)
+            for _, chunk in _read_matrix(tsv_file, PCA_CHUNK)
+        ], axis=0)
+        ratio = pca.explained_variance_ratio_
     else:
-        pca = PCA(n_components=3)
-        df = pd.read_csv(tsv_file, sep="\t", index_col=0)
-        comps = pca.fit_transform(df)
+        _, x = next(_read_matrix(tsv_file))
+        comps, ratio = pca_full(x, 3)
 
     with open(pca_tsv, "w") as w:
         print("sample", "PC1", "PC2", "PC3", sep="\t", file=w)
@@ -175,13 +235,18 @@ def plot_pca(tsv_file, out_path, lowmem=None, class_file=None, debug=False):
                 w.write(f"\t{c}")
             w.write("\n")
 
-    var = pca.explained_variance_ratio_ * 100
+    var = ratio * 100
     axis_titles = [f"PC {i} ({v:.1f}%)" for i, v in enumerate(var, start=1)]
 
     classes = None
     if class_file:
-        df_tax = pd.read_csv(class_file, sep="\t", index_col=0, names=["class"])
-        classes = [str(df_tax["class"].get(n, "NA")) for n in names]
+        tax: dict[str, str] = {}
+        with open(class_file) as reader:
+            for line in reader:
+                cols = line.rstrip("\n").split("\t")
+                if len(cols) >= 2:
+                    tax.setdefault(cols[0], cols[1])
+        classes = [tax.get(n, "NA") for n in names]
 
     fig3d = PlotlyFigure(
         [scatter3d(comps[:, 0], comps[:, 1], comps[:, 2], classes or names)],
@@ -211,8 +276,11 @@ def plot_pca(tsv_file, out_path, lowmem=None, class_file=None, debug=False):
 
 
 def _pca_png(comps, names, path, three_d: bool):
-    import matplotlib
-
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"matplotlib not installed: skipping {Path(path).name}")
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

@@ -63,7 +63,7 @@ def write_html(outfile, fig_plots: dict, tsv_stats: dict) -> Path:
 <style>{_CSS}</style></head>
 <body>
 <h1 class="title"><a class="reference external"
- href="https://github.com/raw-lab/mercat2">MERCAT2-TPU</a> - Summary</h1>
+ href="https://github.com/raw-lab/mercat2">MERCAT2</a> - Summary</h1>
 <div class="contents topic" id="contents"><ul class="simple">
 <li><a class="reference internal" href="#summary">Summary</a></li>
 <ul>{toc}</ul>

@@ -36,7 +36,7 @@ class PlotlyFigure:
         return json.dumps({"data": self.data, "layout": self.layout})
 
     def to_html(self, full_html: bool = False, include_plotlyjs="cdn") -> str:
-        div_id = f"mercat2tpu-{uuid.uuid4().hex}"
+        div_id = f"mercat2-{uuid.uuid4().hex}"
         spec = self.to_json()
         script_tag = f'<script src="{_CDN}"></script>' if include_plotlyjs == "cdn" else ""
         body = (

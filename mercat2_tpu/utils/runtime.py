@@ -11,26 +11,53 @@ from __future__ import annotations
 
 import os
 import time
+from pathlib import Path
 
 
-_CACHE_ENABLED = False
+#: the source checkout this package runs from, when it runs from one
+_CHECKOUT = Path(__file__).resolve().parents[2]
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Turn on JAX's persistent compilation cache (idempotent)."""
-    global _CACHE_ENABLED
-    if _CACHE_ENABLED:
-        return
+def compilation_cache_dir() -> str | None:
+    """The persistent compile cache's directory.
+
+    ``$JAX_COMPILATION_CACHE_DIR`` when set. Otherwise ``.jax_cache`` at a
+    fixed place inside the source checkout, so that a later run of the
+    same checkout finds the programs an earlier one compiled. An installed
+    package (no ``pyproject.toml`` beside it) or a checkout this process
+    cannot write to gets None: no persistent cache.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    cache = _CHECKOUT / ".jax_cache"
+    if not (_CHECKOUT / "pyproject.toml").is_file():
+        return None
+    if not os.access(cache if cache.exists() else _CHECKOUT, os.W_OK):
+        return None
+    return str(cache)
+
+
+def enable_compilation_cache() -> str | None:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    The directory is :func:`compilation_cache_dir`: where
+    ``JAX_COMPILATION_CACHE_DIR`` is set, that directory and no other.
+    Every program is cached, however small or quick to compile. Without
+    a directory the run goes on uncached and prints one line saying so.
+    """
     import jax
 
-    path = path or os.environ.get(
-        "MERCAT2_TPU_CACHE", os.path.expanduser("~/.cache/mercat2_tpu/xla")
-    )
+    path = compilation_cache_dir()
+    if path is None:
+        print("Compile cache off: JAX_COMPILATION_CACHE_DIR is unset and "
+              f"{_CHECKOUT} is not a writable source checkout")
+        return None
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    _CACHE_ENABLED = True
+    return path
 
 
 def mem_use() -> str:
@@ -47,7 +74,7 @@ def mem_use() -> str:
 class DebugTrace:
     """Optional observability for ``-debug`` runs: prints host RAM at each
     stage (the reference gates the same prints on its hidden ``-debug``
-    flag) and records a ``jax.profiler`` trace for TPU timeline analysis."""
+    flag) and records a ``jax.profiler`` trace of the device timeline."""
 
     def __init__(self, enabled: bool, trace_dir=None):
         self.enabled = enabled

@@ -1,4 +1,4 @@
-"""Reference-style benchmark matrix -> docs/results.csv.
+"""Reference-style benchmark matrix -> docs/results.csv (not committed).
 
 Mirrors /root/reference/results/results_2023-11-08/run_tests.sh +
 compile_results.py: the 5-genome set at k in {4, 21, 31}, N trials each,

@@ -2,7 +2,7 @@
 
 Per sample prints gene counts, stop-level precision/recall, exact
 start+stop match rate, and the k=5 min-count-10 protein-table key Jaccard
-vs golden tsv_prod (the pipeline-level metric VERDICT tracks).
+vs golden tsv_prod (the pipeline-level gene-model metric).
 
     python scripts/genemodel_eval.py [samples...]
 """

@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Environment bootstrap — the equivalent of the reference's
-# install_mercat2.sh, TPU-native: no ray/fastqc/fastp/prodigal binaries
-# (built-in replacements cover them; pyrodigal is optional and enables the
-# real Prodigal gene model for -prod). Works with conda or a plain venv.
+# install_mercat2.sh: no ray/fastqc/fastp/prodigal binaries (built-in
+# replacements cover them; pyrodigal is optional and enables the real
+# Prodigal gene model for -prod). Works with conda or a plain venv.
 set -euo pipefail
 
 ENV_NAME="${ENV_NAME:-mercat2-tpu}"
@@ -20,9 +20,10 @@ else
   pip install numpy scipy scikit-learn matplotlib
 fi
 
-# TPU hosts: jax[tpu]; everywhere else the CPU wheel works for development
-if [ -e /dev/accel0 ] || [ -n "${TPU_NAME:-}" ]; then
-  pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# NVIDIA GPU hosts: JAX with its CUDA 12 plugin; elsewhere the CPU wheel
+# works for development
+if command -v nvidia-smi >/dev/null 2>&1; then
+  pip install "jax[cuda12]"
 else
   pip install jax
 fi

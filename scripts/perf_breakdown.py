@@ -2,7 +2,7 @@
 
 Prints per-phase wall times for: gzip+parse (threaded), group assembly
 (encode+bitpack), device dispatch, n_out sync, table fetch. Run this to
-decide which phase to optimize next; see NOTES_r2.md.
+decide which phase to optimize next.
 """
 
 from __future__ import annotations

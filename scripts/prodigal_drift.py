@@ -16,7 +16,7 @@ Prodigal meta-mode results on the bundled 5-genome set (golden tree
      vs golden tsv_prod/*_counts.tsv — key Jaccard, weighted overlap
      (sum of min counts / sum of max), and Spearman rho on shared keys.
 
-Writes docs/PRODIGAL_DRIFT.md. Host-only (no TPU needed):
+Writes docs/PRODIGAL_DRIFT.md. Host-only (no accelerator needed):
     python scripts/prodigal_drift.py
 """
 from __future__ import annotations

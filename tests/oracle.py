@@ -1,5 +1,5 @@
 """Tiny pure-Python k-mer oracle used by unit tests (independent of both the
-reference implementation and the TPU engine)."""
+reference implementation and the device engine)."""
 
 from collections import Counter
 

@@ -1,4 +1,4 @@
-"""MXU one-hot dense histogram vs the sort engine and the oracle.
+"""One-hot matmul dense histogram vs the sort engine and the oracle.
 
 The dense path (ops.mxu_hist) must produce byte-identical tables to the
 sorted path for every small keyspace: same bins, same counts, same

@@ -1,6 +1,6 @@
 """Multi-chip sharded counting vs the single-device engine.
 
-Runs on 8 virtual CPU devices (tests/conftest.py). Covers the TPU mapping
+Runs on 8 virtual CPU devices (tests/conftest.py). Covers the device mapping
 of the reference's chunk-level data parallelism + driver dict merge
 (/root/reference/bin/mercat2.py:118-127): haloed stream sharding, dense
 psum_scatter/psum histogram reduction, and the distributed sort-count
@@ -293,7 +293,7 @@ def test_sharded_dense_on_small_mesh():
 
 def test_route_hbm_budget_batches():
     """sharded_count_sources splits launches to the per-device routing
-    budget, keeps files whole, and stays exact (VERDICT r4 item 5)."""
+    budget, keeps files whole, and stays exact."""
     from mercat2_tpu.engine.counter import NumpySource
     from mercat2_tpu.parallel.count import sharded_count_sources
 

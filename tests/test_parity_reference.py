@@ -1,4 +1,4 @@
-"""Parity of the TPU engine against the reference implementation, using the
+"""Parity of the device engine against the reference implementation, using the
 reference's own ``find_kmers`` as a black-box oracle on the bundled data."""
 
 from pathlib import Path

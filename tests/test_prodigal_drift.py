@@ -5,7 +5,7 @@ docs/PRODIGAL_DRIFT.md records the full 5-genome evaluation
 on the smallest genome so regressions in the gene model are caught:
 
 - gene-count ratio within [0.8, 1.2] of Prodigal's (the old maximal-ORF
-  fallback over-called ~6.6x here; VERDICT r4's done criterion was <= 2x),
+  fallback over-called ~6.6x here; the done criterion was <= 2x),
 - stop precision and recall >= 0.9 (called genes end where Prodigal's do),
 - k=5 min-count-10 protein-table key Jaccard vs golden tsv_prod >= 0.5
   (majority overlap; measured 1.0 on RW1, mean 0.87 across the set).
